@@ -1,6 +1,6 @@
 // Native banded DP fill for the host traceback path.
 //
-// Same integer recurrence as mia_tpu.ops.dp_numpy (and the TPU kernels):
+// Same integer recurrence as mia.ops.dp_numpy (and the device program):
 // semi-global DP with position-specific substitution scores, running-argmax
 // affine gaps, restart option, optional homopolymer-discounted gaps, and the
 // exact reference tie-breaking priority.  Operates on a window the Python

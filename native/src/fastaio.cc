@@ -1,4 +1,4 @@
-// Native FASTA/FASTQ reader for the TPU-native MIA framework.
+// Native FASTA/FASTQ reader for the MIA framework.
 //
 // Byte-exact reimplementation of the reference's streaming parsers
 // (read_fasta src/io.c:194-281, read_fastq src/io.c:46-167) including their
@@ -6,7 +6,7 @@
 // record skip, uppercasing, qual_sum = sum(ascii-33), and the duplicated
 // first description character in fasta records.  Records parse into arena
 // blobs ('\0'-separated strings + flat int arrays) so the Python binding
-// (mia_tpu.io.native) slurps a whole file with O(1) ctypes calls.
+// (mia.io.native) slurps a whole file with O(1) ctypes calls.
 //
 // Build: make -C native   (produces libmiaio.so)
 

@@ -1,6 +1,6 @@
 // Batched host-side glue for the device pass-1 / realignment engine.
 //
-// The device scores whole read batches (mia_tpu/core/jax_engine.py); this
+// The device scores whole read batches (mia/core/jax_engine.py); this
 // module does everything around those dispatches that would otherwise cost
 // per-read Python time:
 //
@@ -17,7 +17,7 @@
 //                            for each read's winning strand (the host half of
 //                            the split described in jax_engine.windowed_exact_dp)
 //
-// Interval semantics match mia_tpu/ops/kmer.py and jax_engine.mask_intervals
+// Interval semantics match mia/ops/kmer.py and jax_engine.mask_intervals
 // exactly: a read whose band needs more than `max_intervals` runs on the
 // host fallback (flag HOST_ONLY); a read whose band spans more than `win_w`
 // columns is scored full-width on device (flag WIDE).
@@ -166,7 +166,7 @@ int accumulate_bands(const Kpa& kpa, const char* seq, int frag_len, int k,
     for (int32_t j = 0; j < cnt; ++j) {
       int64_t rp = pos[j];
       int64_t lo = rp - fp - kMaskBuffer;
-      // quirk preserved from new_kmer_filter (mia_tpu/ops/kmer.py:176,184):
+      // quirk preserved from new_kmer_filter (mia/ops/kmer.py:176,184):
       // the fw band extends one column further right than the rc band
       int64_t hi = rc_strand ? rp + frag_len - fp - 1 + kMaskBuffer
                              : rp + (frag_len - fp) + kMaskBuffer;

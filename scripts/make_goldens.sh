@@ -37,7 +37,7 @@ run distant  -r "$FIX/tr1_distant.fna" -f "$FIX/tf.fna" -D
 run sim200   -r "$FIX/mt_sim.fna" -f "$FIX/sim200.fastq" -c -s "$MAT/ancient.submat.txt" -k 12 -u
 echo "goldens regenerated"
 
-# round-5 additions (VERDICT r4 #8): dedup/id/cutoff/adapter flag coverage
+# dedup/id/cutoff/adapter flag coverage
 run hp_k       -r "$FIX/tr1.fna" -f "$FIX/tf.fna" -h -k 12
 run A454       -r "$FIX/tr1.fna" -f "$FIX/tf.fna" -T -u -A
 run softmask_k -r "$FIX/tr1.fna" -f "$FIX/tf.fna" -M -k 12

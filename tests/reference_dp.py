@@ -4,9 +4,9 @@ engines.  Deliberately the most literal possible rendering of the recurrence
 production code paths."""
 import numpy as np
 
-from mia_tpu.constants import GEP, GOP, HIM
-from mia_tpu.ops.dp_numpy import hp_discount_penalty
-from mia_tpu.ops.pssm import find_sm_depth
+from mia.constants import GEP, GOP, HIM
+from mia.ops.dp_numpy import hp_discount_penalty
+from mia.ops.pssm import find_sm_depth
 
 
 def scalar_dyn_prog(s1c, s2c, sm, mask, sg5, seq1=None, seq2=None, hp=None):

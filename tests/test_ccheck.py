@@ -6,7 +6,7 @@ import sys
 import numpy as np
 import pytest
 
-from mia_tpu.ops.myers import Mode, myers_diff
+from mia.ops.myers import Mode, myers_diff
 
 from .conftest import GOLDEN
 
@@ -16,7 +16,7 @@ def _run_ccheck(args, cwd):
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
     r = subprocess.run(
-        [sys.executable, "-m", "mia_tpu.cli.ccheck", *args],
+        [sys.executable, "-m", "mia.cli.ccheck", *args],
         cwd=cwd,
         env=env,
         capture_output=True,
@@ -98,12 +98,55 @@ def test_ccheck_engines_identical(engine):
     env = dict(os.environ)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
-    env["MIA_JAX_PLATFORM"] = "cpu"
+    env["JAX_PLATFORMS"] = "cpu"
     env["MIA_SCORE_BATCH"] = "64"
     r = subprocess.run(
-        [sys.executable, "-m", "mia_tpu.cli.ccheck", "--engine", engine,
+        [sys.executable, "-m", "mia.cli.ccheck", "--engine", engine,
          "-T", "-a", "cc.maln.1"],
         cwd=d, env=env, capture_output=True, text=True,
     )
     with open(os.path.join(d, "table_a.txt")) as fh:
         assert r.stdout == fh.read(), engine
+
+
+def _walk_loop(aln_ass, n_aln, start):
+    """The reference's walk to a read's start column (src/ccheck.cc)."""
+    p = ass_pos = 0
+    while ass_pos != start and p < n_aln:
+        if aln_ass[p] != "-":
+            ass_pos += 1
+        p += 1
+    return p, ass_pos
+
+
+def _lift_loop(aln1, aln2, s, e):
+    """The reference's lift_over loop (src/ccheck.cc:166-176)."""
+    out = []
+    p = 0
+    for c1, c2 in zip(aln1, aln2):
+        if p >= e:
+            break
+        if c1 != "-" and p >= s:
+            out.append(c1)
+        if c2 != "-":
+            p += 1
+    return "".join(out)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_indexed_walk_matches_loops(seed):
+    """walk_to / lift_over give what the per-column loops give, for every
+    start and end including negative ones and ones past the alignment."""
+    from mia.core.contamination import lift_over, walk_to
+
+    rng = np.random.default_rng(seed)
+    n1, n2 = rng.integers(0, 60, 2)
+    aln1 = "".join(rng.choice(list("ACGT-"), n1))
+    aln2 = "".join(rng.choice(list("ACGT--"), n2))
+    n_aln = min(len(aln1), len(aln2))
+    span = range(-3, n2 + 4)
+    for start in span:
+        assert walk_to(aln2, n_aln, start) == _walk_loop(aln2, n_aln, start)
+        for end in span:
+            assert lift_over(aln1, aln2, start, end) == _lift_loop(
+                aln1, aln2, start, end)

@@ -17,14 +17,12 @@ import pytest
 WORKER = r"""
 import os, sys
 import numpy as np
-from mia_tpu.utils.jaxcfg import apply_platform_override
-apply_platform_override()
-from mia_tpu.parallel.distributed import (
+from mia.parallel.distributed import (
     allreduce_column_counts, converged_everywhere, host_read_shard,
     initialize_if_needed,
 )
-from mia_tpu.ops.consensus import ColumnCounts, find_consensus_cols
-from mia_tpu.ops.pssm import init_flatsubmat, revcom_submat
+from mia.ops.consensus import ColumnCounts, find_consensus_cols
+from mia.ops.pssm import init_flatsubmat, revcom_submat
 
 assert initialize_if_needed()
 import jax
@@ -69,7 +67,7 @@ def test_two_process_consensus_psum(tmp_path):
     for i in range(2):
         env = dict(os.environ)
         env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
-        env["MIA_JAX_PLATFORM"] = "cpu"
+        env["JAX_PLATFORMS"] = "cpu"
         env["JAX_COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
         env["JAX_NUM_PROCESSES"] = "2"
         env["JAX_PROCESS_ID"] = str(i)
@@ -87,8 +85,8 @@ def test_two_process_consensus_psum(tmp_path):
         assert p.returncode == 0, se.decode()[-2000:]
 
     # single-process oracle
-    from mia_tpu.ops.consensus import ColumnCounts, find_consensus_cols
-    from mia_tpu.ops.pssm import init_flatsubmat, revcom_submat
+    from mia.ops.consensus import ColumnCounts, find_consensus_cols
+    from mia.ops.pssm import init_flatsubmat, revcom_submat
 
     N_COLS, N_OBS = 64, 4000
     rng = np.random.default_rng(11)
@@ -129,13 +127,13 @@ def test_two_process_assembly_byte_identical(tmp_path, flags):
     def run(workdir, extra_env):
         env = dict(os.environ)
         env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
-        env["MIA_JAX_PLATFORM"] = "cpu"
-        env["MIA_TPU_SERVER"] = "0"
+        env["JAX_PLATFORMS"] = "cpu"
+        env["MIA_SERVER"] = "0"
         env.pop("XLA_FLAGS", None)
         env.update(extra_env)
         return subprocess.Popen(
             [
-                sys.executable, "-m", "mia_tpu.cli.mia",
+                sys.executable, "-m", "mia.cli.mia",
                 "-r", os.path.join(fixtures, "tr1.fna"),
                 "-f", os.path.join(fixtures, "tf.fastq"),
                 *flags,

@@ -3,11 +3,11 @@ masked/banded, sg5, homopolymer and tie-heavy cases."""
 import numpy as np
 import pytest
 
-from mia_tpu.constants import HIM
-from mia_tpu.core.driver import init_alignment, set_hp_cols, set_hp_rows, set_seq1, set_seq2
-from mia_tpu.ops import dp_numpy as dp
-from mia_tpu.ops.pssm import init_flatsubmat
-from mia_tpu.utils.encoding import pop_hpl_and_hps
+from mia.constants import HIM
+from mia.core.driver import init_alignment, set_hp_cols, set_hp_rows, set_seq1, set_seq2
+from mia.ops import dp_numpy as dp
+from mia.ops.pssm import init_flatsubmat
+from mia.utils.encoding import pop_hpl_and_hps
 
 from .reference_dp import scalar_dyn_prog
 

@@ -3,9 +3,9 @@ best score and end column, bit for bit."""
 import numpy as np
 import pytest
 
-from mia_tpu.core.driver import init_alignment, set_seq1, set_seq2
-from mia_tpu.ops import dp_numpy as dpn
-from mia_tpu.ops.pssm import init_flatsubmat
+from mia.core.driver import init_alignment, set_seq1, set_seq2
+from mia.ops import dp_numpy as dpn
+from mia.ops.pssm import init_flatsubmat
 
 
 def _host_last_row(ref, read, sm, mask, sg5=True):
@@ -19,7 +19,7 @@ def _host_last_row(ref, read, sm, mask, sg5=True):
         a.align_mask[: len(ref)] = mask
     dpn.dyn_prog(a)
     full = np.full(len(ref), dpn.HIM if hasattr(dpn, "HIM") else -(2**31) // 2, np.int64)
-    from mia_tpu.constants import HIM
+    from mia.constants import HIM
 
     full[:] = HIM
     w = a.score.shape[1]
@@ -32,8 +32,8 @@ def _host_last_row(ref, read, sm, mask, sg5=True):
 def test_batch_matches_host(seed):
     import jax.numpy as jnp
 
-    from mia_tpu.ops.dp_jax import batch_best_and_aec, batch_last_row, depths_for
-    from mia_tpu.utils.encoding import encode_seq
+    from mia.ops.dp_jax import batch_best_and_aec, batch_last_row, depths_for
+    from mia.utils.encoding import encode_seq
 
     rng = np.random.default_rng(seed)
     W = 300

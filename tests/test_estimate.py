@@ -4,10 +4,10 @@ import os
 
 import numpy as np
 
-from mia_tpu.constants import PSSM_DEPTH
-from mia_tpu.io.maln import read_ma
-from mia_tpu.io.pssm_io import read_pssm
-from mia_tpu.models.estimate import (
+from mia.constants import PSSM_DEPTH
+from mia.io.maln import read_ma
+from mia.io.pssm_io import read_pssm
+from mia.models.estimate import (
     count_substitutions,
     estimate_from_maln,
     fit_pssm,

@@ -46,12 +46,11 @@ def _run_mia(args, workdir, engine=None):
             # force the device program (CPU backend here): without this the
             # work-stealing would route every batch to the native engine
             # and the device path would go untested
-            env["MIA_TPU_STEAL"] = "0"
+            env["MIA_STEAL"] = "0"
             env["MIA_SCORE_BATCH"] = "64"
     env["JAX_PLATFORMS"] = "cpu"
-    env["MIA_JAX_PLATFORM"] = "cpu"
     subprocess.run(
-        [sys.executable, "-m", "mia_tpu.cli.mia", *args, "-m", "out.maln", *extra],
+        [sys.executable, "-m", "mia.cli.mia", *args, "-m", "out.maln", *extra],
         cwd=workdir,
         env=env,
         check=True,
@@ -71,7 +70,7 @@ def _norm(path):
 def test_maln_byte_identical(name, engine, tmp_path):
     """Every golden config, byte-checked on every engine (the jax engine
     runs its real batched device program on the CPU backend here; the
-    on-hardware gate is tests/test_tpu_parity.py)."""
+    on-card gate is tests/test_gpu.py)."""
     golden = os.path.join(GOLDEN, name)
     if not os.path.isdir(golden):
         pytest.skip(f"no golden outputs for {name}")
@@ -102,13 +101,12 @@ def test_hp_device_program_engaged(tmp_path):
     env = dict(os.environ)
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
-    env["MIA_TPU_STEAL"] = "0"
+    env["MIA_STEAL"] = "0"
     env["MIA_SCORE_BATCH"] = "64"
     env["JAX_PLATFORMS"] = "cpu"
-    env["MIA_JAX_PLATFORM"] = "cpu"
     r = subprocess.run(
         [
-            sys.executable, "-m", "mia_tpu.cli.mia",
+            sys.executable, "-m", "mia.cli.mia",
             "-r", os.path.join(FIXTURES, "tr1.fna"),
             "-f", os.path.join(FIXTURES, "tf.fna"),
             "-h", "-k", "12", "--engine", "jax", "--profile", "-m", "out.maln",
@@ -130,7 +128,7 @@ def test_gapped_alignments_byte_identical_across_engines(tmp_path):
     guards the gapped path explicitly)."""
     import json
 
-    from mia_tpu.models.simulate import SimConfig, random_reference, simulate_reads
+    from mia.models.simulate import SimConfig, random_reference, simulate_reads
 
     ref = random_reference(2000, seed=3)
     ref_fn = tmp_path / "ref.fna"
@@ -151,12 +149,11 @@ def test_gapped_alignments_byte_identical_across_engines(tmp_path):
         repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
         env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
         env["JAX_PLATFORMS"] = "cpu"
-        env["MIA_JAX_PLATFORM"] = "cpu"
-        env["MIA_TPU_STEAL"] = "0"
+        env["MIA_STEAL"] = "0"
         env["MIA_SCORE_BATCH"] = "64"
         r = subprocess.run(
             [
-                sys.executable, "-m", "mia_tpu.cli.mia", "-r", str(ref_fn),
+                sys.executable, "-m", "mia.cli.mia", "-r", str(ref_fn),
                 "-f", str(frag_fn), "-c", "-k", "12", "--engine", engine,
                 "--profile", "-m", str(d / "out.maln"),
             ],

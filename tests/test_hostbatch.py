@@ -11,23 +11,23 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from mia_tpu.constants import INIT_ALN_SEQ_LEN
-from mia_tpu.core.driver import init_alignment, set_seq1, set_seq2
-from mia_tpu.core.hostbatch import (
+from mia.constants import INIT_ALN_SEQ_LEN
+from mia.core.driver import init_alignment, set_seq1, set_seq2
+from mia.core.hostbatch import (
     FLAG_HOST_ONLY,
     FLAG_SKIP,
     FLAG_WIDE,
     BatchHost,
 )
-from mia_tpu.core.jax_engine import MAX_INTERVALS, WIN_W, mask_intervals
-from mia_tpu.ops.dp_numpy import solve_sg
-from mia_tpu.ops.kmer import KmerPosArray, new_kmer_filter
-from mia_tpu.ops.pssm import init_flatsubmat, revcom_submat
-from mia_tpu.utils.encoding import revcom
+from mia.core.jax_engine import MAX_INTERVALS, WIN_W, mask_intervals
+from mia.ops.dp_numpy import solve_sg
+from mia.ops.kmer import KmerPosArray, new_kmer_filter
+from mia.ops.pssm import init_flatsubmat, revcom_submat
+from mia.utils.encoding import revcom
 
 pytestmark = pytest.mark.skipif(
-    BatchHost is None or __import__("mia_tpu.io.native", fromlist=["_load"])._load() is None
-    or not hasattr(__import__("mia_tpu.io.native", fromlist=["_load"])._load(), "mia_p1_create"),
+    BatchHost is None or __import__("mia.io.native", fromlist=["_load"])._load() is None
+    or not hasattr(__import__("mia.io.native", fromlist=["_load"])._load(), "mia_p1_create"),
     reason="native hostbatch not built",
 )
 
@@ -81,7 +81,7 @@ def test_prepare_matches_python(soft_mask, lower_frac):
 
     fw_mask = np.zeros(len1, np.uint8)
     rc_mask = np.zeros(len1, np.uint8)
-    from mia_tpu.utils.encoding import encode_seq
+    from mia.utils.encoding import encode_seq
 
     for b, seq in enumerate(reads):
         hits = new_kmer_filter(seq, len(seq), fkpa, rkpa, k, fw_mask, rc_mask, len1, len1)
@@ -148,7 +148,7 @@ def test_finish_matches_windowed_exact_dp():
 
     sel = []  # (b, strand, best, aec, ivg row)
     expected = []
-    from mia_tpu.core.jax_engine import windowed_exact_dp
+    from mia.core.jax_engine import windowed_exact_dp
 
     for b, seq in enumerate(reads):
         if flags[b] != 0:
@@ -198,9 +198,9 @@ def test_finish_matches_windowed_exact_dp():
 def test_solve_pass1_hp_matches_python():
     """mia_p1_solve with -h homopolymer discounting must reproduce the exact
     per-read Python hp path (scores, coords, traceback strings)."""
-    from mia_tpu.core.driver import sg_align
-    from mia_tpu.core.hostbatch import STATUS_GATED, STATUS_NO_KMER, STATUS_OK
-    from mia_tpu.core.types import FSDB as TFSDB, FragSeq, MapAlignment, RefSeq
+    from mia.core.driver import sg_align
+    from mia.core.hostbatch import STATUS_GATED, STATUS_NO_KMER, STATUS_OK
+    from mia.core.types import FSDB as TFSDB, FragSeq, MapAlignment, RefSeq
 
     rng = np.random.default_rng(23)
     # homopolymer-rich reference: expand random bases into short runs
@@ -235,7 +235,7 @@ def test_solve_pass1_hp_matches_python():
     fkpa = KmerPosArray(ref, k, False)
     rkpa = KmerPosArray(rc_ref, k, False)
     size2 = len1 + 2 * INIT_ALN_SEQ_LEN
-    from mia_tpu.core.driver import set_hp_cols, set_hp_rows
+    from mia.core.driver import set_hp_cols, set_hp_rows
 
     fw_a = init_alignment(INIT_ALN_SEQ_LEN, size2, rc=False, hp_special=True)
     rc_a = init_alignment(INIT_ALN_SEQ_LEN, size2, rc=True, hp_special=True)

@@ -4,8 +4,8 @@ no-alignment-within-maxd cases (ccheck's aligner, src/myers_align.c:10-99)."""
 import numpy as np
 import pytest
 
-from mia_tpu.ops.myers import Mode, UINT_MAX, myers_diff
-from mia_tpu.ops.myers_jax import myers_diff_jax
+from mia.ops.myers import Mode, UINT_MAX, myers_diff
+from mia.ops.myers_jax import myers_diff_jax
 
 _ALPHA = list("ACGT")
 _IUPAC = list("ACGTRYSWKMN")

@@ -5,8 +5,8 @@ import subprocess
 
 import pytest
 
-from mia_tpu.io.fasta import iter_frag_seqs
-from mia_tpu.io.native import native_available, parse_reads_native
+from mia.io.fasta import iter_frag_seqs
+from mia.io.native import native_available, parse_reads_native
 
 from .conftest import FIXTURES
 
@@ -25,7 +25,7 @@ def _ensure_built():
     except Exception:
         return False
     # force a re-probe after building
-    import mia_tpu.io.native as n
+    import mia.io.native as n
 
     n._TRIED = False
     n._LIB = None

@@ -5,14 +5,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mia_tpu.ops.dp_jax import batch_best_and_aec, batch_last_row, depths_for
-from mia_tpu.ops.pssm import init_flatsubmat, revcom_submat
-from mia_tpu.parallel.sharded import (
+from mia.ops.dp_jax import batch_best_and_aec, batch_last_row, depths_for
+from mia.ops.pssm import init_flatsubmat, revcom_submat
+from mia.parallel.sharded import (
     consensus_from_counts,
     make_assembly_step,
     make_mesh,
 )
-from mia_tpu.utils.encoding import encode_seq
+from mia.utils.encoding import encode_seq
 
 
 def _mk_inputs(B=16, W=384, L=32, seed=0):
@@ -103,8 +103,8 @@ def test_mesh_scorer_matches_single_device():
     import jax
     from jax.sharding import Mesh
 
-    import mia_tpu.core.jax_engine as je
-    from mia_tpu.ops.pssm import init_flatsubmat, revcom_submat
+    import mia.core.jax_engine as je
+    from mia.ops.pssm import init_flatsubmat, revcom_submat
 
     rng = np.random.default_rng(5)
     len1 = 700
@@ -149,8 +149,8 @@ def test_mesh_scorer_after_warm_plain_scorer():
     import jax
     from jax.sharding import Mesh
 
-    import mia_tpu.core.jax_engine as je
-    from mia_tpu.ops.pssm import init_flatsubmat
+    import mia.core.jax_engine as je
+    from mia.ops.pssm import init_flatsubmat
 
     rng = np.random.default_rng(11)
     len1 = 700
@@ -188,10 +188,10 @@ def test_device_consensus_counts_bit_equal_host():
     import jax
     from jax.sharding import Mesh
 
-    from mia_tpu.core.columns import _record_arrays, main_column_counts
-    from mia_tpu.core.types import AlnSeq, MapAlignment
-    from mia_tpu.ops.consensus_device import device_column_counts
-    from mia_tpu.ops.pssm import init_flatsubmat, revcom_submat
+    from mia.core.columns import _record_arrays, main_column_counts
+    from mia.core.types import AlnSeq, MapAlignment
+    from mia.ops.consensus_device import device_column_counts
+    from mia.ops.pssm import init_flatsubmat, revcom_submat
 
     rng = np.random.default_rng(5)
     n = 300

@@ -1,4 +1,4 @@
-"""Resident scoring server: an assembly run through `mia_tpu.serve` must be
+"""Resident scoring server: an assembly run through `mia.serve` must be
 byte-identical to the in-process engines (CPU backend, real subprocesses)."""
 import os
 import socket
@@ -13,7 +13,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _env(**extra):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    env["MIA_JAX_PLATFORM"] = "cpu"
     env["JAX_PLATFORMS"] = "cpu"
     env.update(extra)
     return env
@@ -32,7 +31,7 @@ def test_server_assembly_matches_native(fixtures_dir):
         sock = os.path.join(td, "serve.sock")
         log = open(os.path.join(td, "serve.log"), "wb")
         srv = subprocess.Popen(
-            [sys.executable, "-m", "mia_tpu.cli.serve", "--sock", sock],
+            [sys.executable, "-m", "mia.cli.serve", "--sock", sock],
             env=_env(MIA_SCORE_BATCH="64"),
             stdout=log,
             stderr=log,
@@ -60,8 +59,8 @@ def test_server_assembly_matches_native(fixtures_dir):
                 (
                     "server",
                     _env(
-                        MIA_TPU_SERVER=sock,
-                        MIA_TPU_STEAL="0",
+                        MIA_SERVER=sock,
+                        MIA_STEAL="0",
                         MIA_SCORE_BATCH="64",
                     ),
                 ),
@@ -71,7 +70,7 @@ def test_server_assembly_matches_native(fixtures_dir):
                 engine = "native" if tag == "native" else "jax"
                 subprocess.run(
                     [
-                        sys.executable, "-m", "mia_tpu.cli.mia",
+                        sys.executable, "-m", "mia.cli.mia",
                         "-r", os.path.join(fixtures_dir, "tr1.fna"),
                         "-f", os.path.join(fixtures_dir, "tf.fna"),
                         "-c", "-k", "12",
@@ -87,7 +86,7 @@ def test_server_assembly_matches_native(fixtures_dir):
             assert outs["native"] == outs["server"]
             # the server must have actually scored: ask it for a second,
             # cheap proof of life (hello round-trip)
-            from mia_tpu.serve import ServerScorer  # noqa: F401  (import works)
+            from mia.serve import ServerScorer  # noqa: F401  (import works)
         finally:
             srv.terminate()
             srv.wait(timeout=30)

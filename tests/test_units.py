@@ -2,16 +2,16 @@
 consensus decision rules."""
 import numpy as np
 
-from mia_tpu.constants import FLAT_MATCH, MIN_SCORE_CONS, N_SCORE, NR_SCORE
-from mia_tpu.ops.consensus import ColumnCounts, find_consensus_cols
-from mia_tpu.ops.kmer import KmerPosArray, kmer_codes
-from mia_tpu.ops.pssm import (
+from mia.constants import FLAT_MATCH, MIN_SCORE_CONS, N_SCORE, NR_SCORE
+from mia.ops.consensus import ColumnCounts, find_consensus_cols
+from mia.ops.kmer import KmerPosArray, kmer_codes
+from mia.ops.pssm import (
     depth_vector,
     find_sm_depth,
     init_flatsubmat,
     revcom_submat,
 )
-from mia_tpu.utils.encoding import (
+from mia.utils.encoding import (
     compatible,
     encode_seq,
     pop_hpl_and_hps,

@@ -24,15 +24,15 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from mia_tpu.core.driver import init_alignment, set_seq1, set_seq2
-from mia_tpu.core.hostbatch import BatchHost
-from mia_tpu.core.jax_engine import MAX_INTERVALS, WIN_W, windowed_exact_dp
-from mia_tpu.ops.dp_numpy import populate_pwaln_to_begin, solve_sg
-from mia_tpu.ops.pssm import init_flatsubmat
-from mia_tpu.utils.encoding import revcom
+from mia.core.driver import init_alignment, set_seq1, set_seq2
+from mia.core.hostbatch import BatchHost
+from mia.core.jax_engine import MAX_INTERVALS, WIN_W, windowed_exact_dp
+from mia.ops.dp_numpy import populate_pwaln_to_begin, solve_sg
+from mia.ops.pssm import init_flatsubmat
+from mia.utils.encoding import revcom
 
 _native = (
-    __import__("mia_tpu.io.native", fromlist=["_load"])._load()
+    __import__("mia.io.native", fromlist=["_load"])._load()
 )
 pytestmark = pytest.mark.skipif(
     _native is None or not hasattr(_native, "mia_p1_create"),
